@@ -63,7 +63,7 @@ class CommandLineInput:
     stats_target: Optional[str] = None
     stats_input_hint: str = ""
 
-    # TPU-native extensions (no reference counterpart)
+    # extensions of this implementation (no reference counterpart)
     engine: str = "batched"  # reference | batched | device
     batch_size: int = 128
     num_hosts: int = 1
@@ -192,9 +192,9 @@ def build_parser(advanced: bool = False) -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="floxer-tpu",
         description=(
-            "floxer-tpu: an exact longread aligner for TPUs using "
+            "floxer-tpu: an exact longread aligner for GPUs using "
             "FM-index search with optimal search schemes, PEX hierarchical "
-            "verification and Pallas banded edit-distance kernels"
+            "verification and CUDA banded edit-distance kernels"
         ),
         epilog=(
             None
@@ -365,7 +365,7 @@ def build_parser(advanced: bool = False) -> argparse.ArgumentParser:
         **adv(help="Verification execution engine: 'reference' runs the "
               "sequential host path, 'batched' the level-synchronous batch "
               "engine on host, 'device' the batch engine with the Myers "
-              "kernels on the JAX backend (TPU). All three produce "
+              "kernels on the JAX backend (GPU). All three produce "
               "identical output."),
     )
     parser.add_argument(

@@ -1,6 +1,6 @@
 """Device-resident FM-index: batched rank / LF / locate as JAX gathers.
 
-TPU-native replacement for fmindex-collection's EPR-dictionary rank queries
+Device replacement for fmindex-collection's EPR-dictionary rank queries
 (include/fmindex.hpp:8, queried per-cursor in search.cpp:173/253): the BWT
 and its occ checkpoints live in HBM as flat arrays, and a rank query for a
 whole batch of cursors is one checkpoint gather plus a masked popcount over
@@ -36,7 +36,7 @@ from .fmindex import OCC_BLOCK, FmIndex
 class DeviceSingleIndex:
     bwt: jax.Array  # uint8 [n]
     occ: jax.Array  # int32 [nb, SIGMA]
-    # bit-plane occ dictionary (TPU-native EPR analogue, fmindex.hpp:8):
+    # bit-plane occ dictionary (device EPR analogue, fmindex.hpp:8):
     # uint32 [nb, SIGMA, OCC_BLOCK // 32]; bit j of word w in block b set
     # iff bwt[b * OCC_BLOCK + 32 * w + j] == symbol. rank = checkpoint
     # gather + masked lax.population_count — ~4x less gather traffic and
@@ -228,7 +228,7 @@ def pack_bit_planes(bwt) -> "np.ndarray":
 def _rank_all_planes(occ, planes, positions) -> jax.Array:
     """Bit-plane rank: [B] -> [B, SIGMA] via one checkpoint gather + one
     plane-row gather + masked popcounts (the EPR checkpoint+prefix scheme
-    in TPU form)."""
+    in device form)."""
     block = positions // OCC_BLOCK
     base = occ[block]  # [B, SIGMA]
     r = (positions - block * OCC_BLOCK).astype(jnp.uint32)  # [B]

@@ -1,6 +1,6 @@
 """Bidirectional FM-index over DNA5 rank sequences.
 
-TPU-native re-design of the reference's fmindex-collection BiFMIndex
+Device-friendly re-design of the reference's fmindex-collection BiFMIndex
 (include/fmindex.hpp:7-10: alphabet size 6, suffix-array sampling rate 4,
 built in floxer.cpp:92-97, queried in src/lib/search.cpp:173/253).
 

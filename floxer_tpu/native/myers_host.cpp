@@ -218,7 +218,7 @@ void one_task_banded(
 
 // Lane-parallel banded variant: kLanes tasks advance together using GCC
 // vector extensions (one AVX-512 vector of uint64 lanes per band word).
-// Per-symbol Peq masks are replaced by the TPU kernel's bit-plane form —
+// Per-symbol Peq masks are replaced by the device kernel's bit-plane form —
 // three char bit-planes plus an all-match plane, Eq = XNOR-reduce against
 // the text char's bits — so the column body is purely elementwise over
 // lane vectors (no per-lane gathers, fully vectorizable). The Myers ADD

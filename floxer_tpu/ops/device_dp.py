@@ -1,6 +1,6 @@
 """Batched semi-global edit distance on device (JAX).
 
-TPU-native replacement for the reference's per-anchor seqan3 DP calls
+Device replacement for the reference's per-anchor seqan3 DP calls
 (alignment.cpp:83-181): instead of one thread aligning one (node query,
 reference window) pair at a time, whole batches of padded pairs run as one
 jitted computation — existence checks and score+end for every PEX tree level

@@ -1,6 +1,6 @@
 """Numpy reference implementation of semi-global edit-distance alignment.
 
-This is the correctness oracle for the Pallas kernels and the host fallback
+This is the correctness oracle for the device kernels and the host fallback
 path. Semantics mirror the reference's seqan3 wrapper (src/lib/alignment.cpp):
 
   - global alignment with free end gaps on the REFERENCE only: the query must

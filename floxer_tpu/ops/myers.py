@@ -5,14 +5,13 @@ exactly our semi-global recurrence (dp[0][j] = 0, free reference overhangs;
 see ops/dp_reference.py) at 32 DP cells per machine word. This module is the
 batched multi-word generalization (Hyyro's block scheme): state VP/VN is
 [W, B] uint32 with W = ceil(max_pattern/32) words, carries ripple through a
-small unrolled word loop, and the text dimension is one lax.scan — so one
+small unrolled word loop, and the text dimension is one fori_loop — so one
 jitted call scores a whole padded batch of (pattern, text) pairs.
 
 This is the verification workhorse for EXISTENCE checks and score+end
 position (alignment.cpp modes 1 and 2); CIGAR traceback for accepted roots
-runs on host from the device-reported end column. The Pallas variant
-(pallas_myers.py) keeps the whole scan in VMEM with double-buffered text
-tiles; this version is its oracle and the fallback on non-TPU backends.
+runs on host from the device-reported end column. Tasks whose band is
+narrower than the pattern go to the banded kernel (ops/banded.py) instead.
 
 End-column semantics match dp_reference: rightmost minimal end among columns
 0..text_len-1 (update on <=, flush column excluded via the eligibility mask).
@@ -103,7 +102,7 @@ def myers_batched(
     vn0 = jnp.zeros((W, B), dtype=jnp.uint32)
     score0 = pattern_lengths
 
-    def step(carry, j):
+    def step(j, carry):
         vp, vn, score, best, best_end = carry
         chars = texts[:, j]  # [B]
         # Eq per word: gather the char's bitmask column
@@ -166,12 +165,14 @@ def myers_batched(
         improves = eligible & (score <= best)
         best = jnp.where(improves, score, best)
         best_end = jnp.where(improves, j + 1, best_end)
-        return (vp, vn, score, best, best_end), None
+        return vp, vn, score, best, best_end
 
     N = texts.shape[1]
     init = (vp0, vn0, score0, score0, jnp.zeros((B,), dtype=jnp.int32))
-    (vp, vn, score, best, best_end), _ = jax.lax.scan(
-        step, init, jnp.arange(N, dtype=jnp.int32)
+    # only columns j + 1 < max(text_lengths) can score: later ones are dead
+    columns_needed = jnp.clip(jnp.max(text_lengths) - 1, 0, N)
+    _, _, _, best, best_end = jax.lax.fori_loop(
+        0, columns_needed, step, init
     )
     return best, best_end
 
@@ -179,6 +180,9 @@ def myers_batched(
 # patterns up to this many words use the unrolled-word kernel; beyond it the
 # carry-scan kernel avoids a W-times-unrolled trace
 MAX_UNROLLED_WORDS = 8
+# batches of either kernel are padded to a multiple of this many tasks, so
+# the set of compiled shapes stays small
+FULL_GROUP = 8
 
 
 @partial(jax.jit, static_argnames=("num_words",))
@@ -196,10 +200,9 @@ def myers_batched_large(
     a plain word roll. Handles 100k-base root verifications (W ~ 3200) in
     one compiled kernel.
 
-    Layout [B, W]: the word axis sits on the 128-lane dimension, so even a
+    Layout [B, W]: the word axis is the vector axis, so even a
     batch-of-one root verification (the common case under interval
-    optimization) fills the VPU — a [W, B] layout would leave 127/128 lanes
-    idle at B = 1."""
+    optimization) is W-wide work."""
     B = peq.shape[0]
     W = num_words
     texts = texts.astype(jnp.int32)
@@ -283,15 +286,15 @@ def myers_batched_large(
         best_end = jnp.where(improves, j + 1, best_end)
         return vp, vn, score, best, best_end
 
-    def step(carry, block):
+    def step(block, carry):
         vp, vn, score, best, best_end = carry
         # a small unrolled block per scan iteration amortizes the per-step
-        # loop overhead of lax.scan
+        # loop overhead of the column loop
         for u in range(UNROLL):
             vp, vn, score, best, best_end = one_char(
                 vp, vn, score, best, best_end, block * UNROLL + u
             )
-        return (vp, vn, score, best, best_end), None
+        return vp, vn, score, best, best_end
 
     N = texts.shape[1]
     num_blocks = -(-N // UNROLL)
@@ -304,8 +307,12 @@ def myers_batched_large(
         pattern_lengths,
         jnp.zeros((B,), dtype=jnp.int32),
     )
-    (_, _, _, best, best_end), _ = jax.lax.scan(
-        step, init, jnp.arange(num_blocks, dtype=jnp.int32)
+    # only columns j + 1 < max(text_lengths) can score: later blocks are dead
+    blocks_needed = jnp.clip(
+        (jnp.max(text_lengths) + UNROLL - 2) // UNROLL, 0, num_blocks
+    )
+    _, _, _, best, best_end = jax.lax.fori_loop(
+        0, blocks_needed, step, init
     )
     return best, best_end
 
@@ -315,42 +322,11 @@ def myers_distance(
     pattern_lengths: np.ndarray,
     texts: np.ndarray,
     text_lengths: np.ndarray,
-    sync: bool = True,
 ):
-    """Convenience wrapper: builds Peq on host and runs the batched kernel.
-
-    Dispatch: unrolled-word kernel for small patterns; for large patterns the
-    VMEM-resident Pallas kernel on TPU (ops/pallas_myers_large), the XLA
-    carry-scan formulation elsewhere.
-
-    With sync=False the TPU paths return device arrays without forcing a
-    download, so a caller submitting several batches can overlap their
-    dispatches and download all results at the end (np.asarray is the
-    reliable sync point on this backend)."""
-    if jax.default_backend() == "tpu":
-        max_len = int(np.max(pattern_lengths)) if len(pattern_lengths) else 0
-        if max_len > MAX_UNROLLED_WORDS * WORD:
-            from .pallas_myers_large import myers_pallas_large
-
-            return myers_pallas_large(
-                np.asarray(patterns),
-                np.asarray(pattern_lengths),
-                np.asarray(texts),
-                np.asarray(text_lengths),
-                interpret=False,
-                sync=sync,
-            )
-        from .pallas_myers import myers_pallas
-
-        return myers_pallas(
-            np.asarray(patterns),
-            np.asarray(pattern_lengths),
-            np.asarray(texts),
-            np.asarray(text_lengths),
-            interpret=False,
-            sync=sync,
-        )
-
+    """Convenience wrapper: builds Peq on host and runs the batched kernel
+    (unrolled-word kernel for small patterns, carry-scan kernel for large
+    ones). Returns device arrays; callers download with np.asarray, so a
+    caller submitting several batches overlaps their dispatches."""
     peq = build_peq_vectorized(np.asarray(patterns), np.asarray(pattern_lengths))
     W = peq.shape[2]
     kernel = myers_batched if W <= MAX_UNROLLED_WORDS else myers_batched_large

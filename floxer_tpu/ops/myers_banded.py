@@ -2,8 +2,8 @@
 
 The speed-of-light formulation for PEX verification tasks (node query
 against an anchor-centered reference window, alignment.cpp:88-96 semantics):
-instead of carrying Myers state for all m pattern rows (ops/myers.py,
-ops/pallas_myers_large.py), carry only a BAND of rows that slides down one
+instead of carrying Myers state for all m pattern rows (ops/myers.py),
+carry only a BAND of rows that slides down one
 row per text column.
 
 Why this is exact, not approximate: a verification window is constructed so
@@ -47,7 +47,7 @@ Peq = all-ones / delta 0 (D = 0), rows 1..budget carry the pattern prefix
 and delta +1 (D(i, 0) = i).
 
 This module is the word-level numpy mirror used to pin the algorithm and
-as the oracle for the Pallas TPU kernel (ops/pallas_myers_banded.py).
+as the oracle for the device kernel (ops/banded.py).
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """On-device banded CIGAR traceback for accepted PEX roots.
 
-The TPU-native counterpart of native/traceback.cpp (itself the banded
+The device counterpart of native/traceback.cpp (itself the banded
 rebuild of the reference's full-matrix traceback, alignment.cpp:147-180):
 for each accepted root the device recomputes the |j - i - (end_col - m)|
 <= distance band around the optimal path's diagonal and emits a per-cell

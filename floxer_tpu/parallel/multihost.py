@@ -1,7 +1,7 @@
 """Multi-host orchestration: read sharding and output merging.
 
 The reference is strictly single-process (SURVEY.md section 2.4); floxer-tpu
-scales across TPU hosts with:
+scales across hosts with:
 
   - deterministic strided READ SHARDING: host h of H processes the queries
     whose internal id i satisfies i % H == h. Every host streams the same
@@ -9,7 +9,7 @@ scales across TPU hosts with:
     global internal ids (and with them output determinism) are preserved.
   - per-host shard outputs merged into one canonical SAM/BAM ordered by
     query internal id: because shards are strided, the merge is a
-    round-robin interleave of per-query record groups. On a real pod slice
+    round-robin interleave of per-query record groups. On a real cluster
     this runs on host 0 after a barrier (jax.experimental.multihost_utils);
     the same merge is exposed as `floxer_tpu.tools.merge_sam` for
     file-based workflows.

@@ -4,7 +4,7 @@ Parity target: include/statistics.hpp + src/lib/statistics.cpp: one counter
 (completely excluded queries) and 18 named threshold histograms with
 min/mean/max, two hardcoded binning profiles selected by --stats-input-hint
 (real_nanopore default / simulated, statistics.cpp:9-61), TOML or terminal
-output. In the TPU pipeline the per-batch histogram updates are plain numpy
+output. In the batched pipeline the per-batch histogram updates are plain numpy
 reductions on host; across hosts the arrays merge with a psum.
 """
 

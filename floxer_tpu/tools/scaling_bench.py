@@ -2,19 +2,21 @@
 align-phase scaling efficiency (BASELINE.md north star: >= 0.8).
 
 Each shard is a separate aligner process with --num-hosts N --host-id i —
-exactly the per-host invocation on a pod slice, here launched locally so
+exactly the per-host invocation on a cluster, here launched locally so
 the efficiency of the sharding + merge path is measurable anywhere.
 
 Two modes:
   sequential (default): shards run one after another, each getting the
-    whole machine — the faithful single-machine proxy for N pod hosts
-    that each own their cores/chip. The pod wall-clock estimate is the
+    whole machine — the faithful single-machine proxy for N hosts that
+    each own their cores and card. The cluster wall-clock estimate is the
     SLOWEST shard's align phase plus the merge; efficiency =
     (single_align / N) / (max(shard_align) + merge_seconds).
-  concurrent: shards run simultaneously on this one machine — measures
-    that nothing serializes in the sharding/merge path, but the N
-    processes contend for the same cores, so the efficiency number
-    reflects this machine's core count, not pod behavior.
+  concurrent: shards run simultaneously on this one machine, shard i on
+    card i alone (CUDA_VISIBLE_DEVICES=i), so the machine needs one card
+    per shard: a JAX process reserves most of its card's memory, and two
+    on one card fail or spoil each other's times. Measures that nothing
+    serializes in the sharding/merge path; the N processes still contend
+    for the same host cores.
 
 Timing uses the align phase as reported by the aligner itself ("finished
 aligning successfully in X seconds"), excluding per-process index
@@ -35,12 +37,16 @@ import time
 _ALIGN_RE = re.compile(r"finished aligning successfully in ([0-9.]+) seconds")
 
 
-def _spawn(base_args, output, num_hosts, host_id):
+def _spawn(base_args, output, num_hosts, host_id, card=None):
     # stderr goes to a tempfile, NOT a pipe: in concurrent mode a pipe
     # would fill at 64 KB while earlier shards are being awaited, stalling
     # the shard mid-align and corrupting its self-reported timing
+    import os
     import tempfile
 
+    env = dict(os.environ)
+    if card is not None:
+        env["CUDA_VISIBLE_DEVICES"] = str(card)
     log = tempfile.TemporaryFile(mode="w+")
     proc = subprocess.Popen(
         [
@@ -53,6 +59,7 @@ def _spawn(base_args, output, num_hosts, host_id):
         stdout=subprocess.DEVNULL,
         stderr=log,
         text=True,
+        env=env,
     )
     proc._shard_log = log  # type: ignore[attr-defined]
     return proc
@@ -83,7 +90,7 @@ def run_shards(num_hosts, base_args, output_prefix, concurrent=False):
     times: list[float] = []
     if concurrent:
         procs = [
-            _spawn(base_args, outputs[i], num_hosts, i)
+            _spawn(base_args, outputs[i], num_hosts, i, card=i)
             for i in range(num_hosts)
         ]
         times = [_finish(proc) for proc in procs]
@@ -105,7 +112,8 @@ def main(argv=None) -> int:
     parser.add_argument(
         "--mode", choices=("sequential", "concurrent"), default="sequential",
         help="sequential = faithful per-host proxy (each shard gets the "
-        "whole machine); concurrent = all shards at once on this machine",
+        "whole machine); concurrent = all shards at once, shard i on card "
+        "i (one card per shard)",
     )
     parser.add_argument(
         "--extra",
@@ -150,7 +158,7 @@ def main(argv=None) -> int:
     outputs, shard_times = run_shards(
         args.num_hosts, base, args.output_prefix, concurrent=concurrent
     )
-    pod_wall = max(shard_times)
+    cluster_wall = max(shard_times)
 
     from ..parallel.multihost import merge_sam_shards
 
@@ -159,7 +167,7 @@ def main(argv=None) -> int:
     merge_seconds = time.monotonic() - merge_started
 
     single_rps = num_queries / single_align
-    sharded_rps = num_queries / (pod_wall + merge_seconds)
+    sharded_rps = num_queries / (cluster_wall + merge_seconds)
     efficiency = sharded_rps / (single_rps * args.num_hosts)
 
     print(
@@ -175,7 +183,7 @@ def main(argv=None) -> int:
                 "sharded_reads_per_s_per_host_ideal": round(
                     single_rps, 3
                 ),
-                "pod_reads_per_s_estimate": round(sharded_rps, 3),
+                "cluster_reads_per_s_estimate": round(sharded_rps, 3),
                 "scaling_efficiency": round(efficiency, 3),
             }
         )

@@ -17,8 +17,8 @@ pinned by verification_test.cpp:126-161):
     length      = min(base_length + 2 * extra, reference_length - start)
 
 The alignment calls go through a pluggable engine so the device pipeline can
-batch them (ops/dp_reference for the host oracle, ops/banded_myers Pallas
-kernels on TPU).
+batch them (ops/dp_reference for the host oracle, the Myers kernels of
+ops/ on the device).
 """
 
 from __future__ import annotations

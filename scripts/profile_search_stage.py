@@ -1,4 +1,4 @@
-"""Profile the host search stage alone (no TPU): PEX tree build + seed
+"""Profile the host search stage alone (no device): PEX tree build + seed
 generation + chunk-batched native FM search on one 250-read E. coli chunk.
 
 Usage: python scripts/profile_search_stage.py [N_READS] [THREADS]

@@ -26,16 +26,28 @@ def test_peq_builders_agree():
     )
 
 
-@pytest.mark.parametrize("seed,max_m", [(0, 30), (1, 30), (2, 100), (3, 200)])
-def test_myers_matches_oracle(seed, max_m):
+@pytest.mark.parametrize(
+    "seed,max_m,rows,max_extra,mutated_share",
+    [
+        (0, 30, 13, 60, 0.7),
+        (1, 30, 13, 60, 0.7),
+        (2, 100, 13, 60, 0.7),
+        (3, 200, 13, 60, 0.7),
+        # few rows, short overhangs, every pattern a mutated text slice
+        (0, 30, 7, 40, 1.0),
+        (1, 90, 7, 40, 1.0),
+    ],
+    ids=["0-30", "1-30", "2-100", "3-200", "0-30-few-rows", "1-90-few-rows"],
+)
+def test_myers_matches_oracle(seed, max_m, rows, max_extra, mutated_share):
     rng = np.random.default_rng(seed)
     patterns = []
     texts = []
-    for _ in range(13):
+    for _ in range(rows):
         m = int(rng.integers(2, max_m))
-        n = int(rng.integers(m, m + 60))
+        n = int(rng.integers(m, m + max_extra))
         text = rng.integers(1, 5, size=n).astype(np.uint8)
-        if rng.random() < 0.7:
+        if rng.random() < mutated_share:
             start = int(rng.integers(0, max(1, n - m)))
             pattern = text[start : start + m].copy()
             for _ in range(int(rng.integers(0, 4))):

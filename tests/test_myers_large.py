@@ -34,13 +34,24 @@ def _run(kernel, patterns, texts):
     return np.asarray(d), np.asarray(e)
 
 
-@pytest.mark.parametrize("seed,max_m", [(0, 100), (1, 400), (2, 900)])
-def test_large_kernel_matches_oracle(seed, max_m):
+@pytest.mark.parametrize(
+    "seed,max_m,min_m,max_extra",
+    [
+        (0, 100, 40, 120),
+        (1, 400, 40, 120),
+        (2, 900, 40, 120),
+        # shorter patterns and overhangs
+        (0, 60, 20, 60),
+        (1, 200, 20, 60),
+    ],
+    ids=["0-100", "1-400", "2-900", "0-60-short", "1-200-short"],
+)
+def test_large_kernel_matches_oracle(seed, max_m, min_m, max_extra):
     rng = np.random.default_rng(seed)
     patterns, texts = [], []
     for _ in range(6):
-        m = int(rng.integers(40, max_m))
-        n = int(rng.integers(m, m + 120))
+        m = int(rng.integers(min_m, max_m))
+        n = int(rng.integers(m, m + max_extra))
         text = rng.integers(1, 5, size=n).astype(np.uint8)
         start = int(rng.integers(0, max(1, n - m)))
         pattern = text[start : start + m].copy()

@@ -2,18 +2,18 @@
 
 The resident entry points must return bit-identical (distance, end) to the
 host-packing kernels for every task — they are the same kernels fed by
-on-device gathers. Runs in interpret mode on the CPU backend (conftest)."""
+on-device gathers. Runs the plain-XLA kernels on the CPU backend
+(conftest)."""
 
 import numpy as np
 import pytest
 
 import jax.numpy as jnp
 
+from floxer_tpu.ops.banded import myers_banded_device
 from floxer_tpu.ops.device_dp import pad_batch
+from floxer_tpu.ops.myers import myers_distance
 from floxer_tpu.ops.myers_banded import band_store_bits
-from floxer_tpu.ops.pallas_myers import myers_pallas
-from floxer_tpu.ops.pallas_myers_banded import myers_pallas_banded
-from floxer_tpu.ops.pallas_myers_large import myers_pallas_large
 from floxer_tpu.ops.resident import (
     ResidentBank,
     _gather_packed,
@@ -114,13 +114,13 @@ def test_banded_resident_matches_host(seed):
     band_words = -(-(-(-band_bits // 32)) // 128) * 128
     txt, tlen = pad_batch([t["window"] for t in tasks])
     budgets = np.asarray([t["budget"] for t in tasks])
-    want_d, want_e = myers_pallas_banded(
+    want_d, want_e = myers_banded_device(
         [t["pattern"] for t in tasks], txt, tlen, budgets, band_words
     )
 
-    from floxer_tpu.ops.pallas_myers_banded import EFFECTIVE_GROUP
+    from floxer_tpu.ops.banded import GROUP
 
-    T = EFFECTIVE_GROUP  # pad to the banded group requirement
+    T = 2 * GROUP  # a padded batch, as the callers build it
     num_text = -(-txt.shape[1] // 1024) * 1024
     win_starts = np.zeros(T, dtype=np.int64)
     win_lens = np.ones(T, dtype=np.int64)
@@ -148,9 +148,9 @@ def test_full_small_resident_matches_host():
 
     pat, plen = pad_batch([t["pattern"] for t in tasks])
     txt, tlen = pad_batch([t["window"] for t in tasks])
-    want_d, want_e = myers_pallas(pat, plen, txt, tlen)
+    want_d, want_e = (np.asarray(x) for x in myers_distance(pat, plen, txt, tlen))
 
-    T = 128  # pad to the small kernel's LANES requirement
+    T = 16  # a padded batch, as the callers build it
     m_bucket = -(-pat.shape[1] // 128) * 128
     assert m_bucket <= 256, "stay on the small-kernel route"
     num_text = -(-txt.shape[1] // 8) * 8
@@ -197,9 +197,9 @@ def test_full_large_resident_matches_host():
 
     pat, plen = pad_batch([t["pattern"] for t in tasks])
     txt, tlen = pad_batch([t["window"] for t in tasks])
-    want_d, want_e = myers_pallas_large(pat, plen, txt, tlen)
+    want_d, want_e = (np.asarray(x) for x in myers_distance(pat, plen, txt, tlen))
 
-    T = 8  # large-kernel SUBLANES requirement
+    T = 8  # a padded batch, as the callers build it
     m_bucket = -(-pat.shape[1] // 128) * 128
     assert m_bucket > 256, "stay on the large-kernel route"
     num_text = -(-txt.shape[1] // 128) * 128

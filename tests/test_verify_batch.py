@@ -435,13 +435,13 @@ def test_effective_host_rate_split_and_renormalization(monkeypatch):
 
 
 def test_direct_attached_routes_all_device(monkeypatch):
-    """Direct-attached-TPU simulation: with per-call overhead pinned to
+    """Direct-attached card simulation: with per-call overhead pinned to
     ~1 ms and a calibrated device rate far above the host rate, the router
-    engages the device and sends it (essentially) the whole wave — the
-    VERDICT item-8 acceptance check. The residual host share is the SPLIT
-    optimizer's free concurrency (host threads run while the device
-    executes), not pricing-out; on a real direct chip with hundred-Mcell
-    waves the host share converges to the same few percent."""
+    engages the device and sends it (essentially) the whole wave. The
+    residual host share is the SPLIT optimizer's free concurrency (host
+    threads run while the device executes), not pricing-out; with
+    hundred-Mcell waves the host share converges to the same few
+    percent."""
     import floxer_tpu.verify_batch as vb
     from floxer_tpu.ops.resident import ResidentBank
 
